@@ -1,9 +1,9 @@
-"""simplex_tpu — a TPU-native linear-programming framework.
+"""simplex_tpu — a linear-programming framework for an accelerator (GPU).
 
 A from-scratch re-design of the capabilities of the-utn-team/simplex-solver
 (see SURVEY.md): standard-form LPs with <=/>=/= constraints solved by a
 two-phase tableau simplex expressed as jitted JAX/XLA/Pallas kernels, plus
-batched (vmap), revised-simplex, first-order (PDHG) and multi-chip
+batched (vmap), revised-simplex, first-order (PDHG) and multi-device
 (shard_map) paths, with the reference's services (storage, reports, web UI)
 rebuilt on top.
 """

@@ -19,7 +19,7 @@ import json
 import sys
 from typing import Dict, Optional
 
-from .config import SolverConfig
+from .config import SolverConfig, enable_compile_cache
 from .controllers.cli_io import (
     ConstraintsController,
     ObjectiveFunctionController,
@@ -189,6 +189,7 @@ def main(argv=None) -> int:
     p_serve.add_argument("--port", type=int, default=5000)
 
     args = parser.parse_args(argv)
+    enable_compile_cache()
     commands = {
         "interactive": cmd_interactive,
         "solve": cmd_solve,

@@ -31,6 +31,24 @@ PREFIX_PDF = "reporte_solucion_"
 SECRET_KEY = os.environ.get("SIMPLEX_TPU_SECRET_KEY", "simplex_tpu_dev_key")
 
 
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is changed.  Otherwise the cache lives at the fixed path
+    ``.jax_cache/`` of the checkout, never a path built from a temporary
+    name, a pid or the time, which a later run could not find again.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    path = os.path.join(BASE_DIR, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
+
 def _env_float(name: str, default: float) -> float:
     v = os.environ.get(name)
     return float(v) if v else default
@@ -43,7 +61,7 @@ def _env_int(name: str, default: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Options for the TPU simplex engines.
+    """Options for the simplex engines.
 
     Replaces the reference's hard-coded ``{"presolve": True, "time_limit": 10}``
     scipy options (``solver_controller.py:76``).
@@ -68,9 +86,9 @@ class SolverConfig:
     # Hard pivot-iteration cap (static bound for lax.while_loop).
     max_iters: int = 16384
 
-    # Working dtype on device.  float32 is TPU-native; the final basis is
-    # re-solved on host in float64 when `refine=True`, which recovers 1e-6
-    # objective parity vs the CPU reference (SURVEY.md §7 "hard parts").
+    # Working dtype on device.  The final basis is re-solved on host in
+    # float64 when `refine=True`, which recovers 1e-6 objective parity vs
+    # the CPU reference (SURVEY.md §7 "hard parts").
     dtype: str = "float32"
     refine: bool = True
 
@@ -91,11 +109,6 @@ class SolverConfig:
     # None = auto: max(64, m_pad // 8), so the O(m^3) refactor stays a
     # small fraction of the O(m^2·n)-per-period pivot work at any size.
     refactor_every: Optional[int] = None
-
-    # Batched per-iteration step implementation: "auto" (Pallas fused kernel
-    # on TPU, plain XLA elsewhere), "pallas", "xla", or "pallas_interpret"
-    # (interpreter mode, for CPU tests of the kernel).
-    batched_backend: str = "auto"
 
     @staticmethod
     def from_env() -> "SolverConfig":
@@ -130,8 +143,6 @@ class SolverConfig:
             max_history=_env_int("SIMPLEX_TPU_MAX_HISTORY", d.max_history),
             refactor_every=(int(refactor_s) if refactor_s
                             else d.refactor_every),
-            batched_backend=os.environ.get("SIMPLEX_TPU_BATCHED_BACKEND",
-                                           d.batched_backend),
         )
 
 

@@ -2,8 +2,8 @@
 
 Plays the role of the reference's ``SolverController``
 (``/root/reference/app/controllers/solver_controller.py:53-120``): loads the
-problem from the wrapper dict, solves it (here: the TPU two-phase tableau
-simplex instead of scipy/HiGHS), generates the per-iteration tableau history
+problem from the wrapper dict, solves it (here: the device two-phase
+tableau simplex instead of scipy/HiGHS), generates the per-iteration tableau history
 (device history kernel instead of simple_simplex) and the interactive
 visualization (SVG widget instead of gilp), assembles + saves + returns the
 report with the same schema:

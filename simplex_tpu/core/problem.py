@@ -445,10 +445,11 @@ def compile_standard_form(lp: LinearProgram,
     n_art = int(np.sum(ops != OP_LE))            # artificial for >= and = rows
     n_cols = n + n_slack + n_art
 
-    # TPU f32 tiling is (8, 128) over the last two dims, so the TOTAL tableau
-    # (m_pad + 1 rows incl. objective, n_pad + 1 cols incl. RHS) is what gets
-    # aligned — a (9, 9) logical tableau would physically occupy (16, 128)
-    # tiles and stream the padding on every pass.
+    # The TOTAL tableau (m_pad + 1 rows incl. objective, n_pad + 1 cols
+    # incl. RHS) is what gets aligned to (row_pad, col_pad): the dense
+    # engine's shape buckets (models/dense._pad_plan) keep the number of
+    # compiled shapes small and every row a whole number of 128-float
+    # (512-byte) segments for coalesced device-memory access.
     m_pad = max(_round_up(m + 1, row_pad), row_pad) - 1
     # Padding rows each get their own (masked) unit column so the basis matrix
     # B = T0[:, basis] stays invertible for on-device refactorization.

@@ -21,7 +21,7 @@ among 10k right answers, so batched (``models/batched.py``) and sharded
 
 The reference gets this guarantee for free by trusting HiGHS f64
 (``/root/reference/app/controllers/solver_controller.py:78-85``); an f32
-TPU sweep has to earn it.
+device sweep has to earn it.
 """
 from __future__ import annotations
 
@@ -375,8 +375,8 @@ def certify_sweep_le_f64(status: np.ndarray, basis: np.ndarray,
         b_eff = b
 
     # Basis matrix straight from raw data: structural columns from A via
-    # ONE flat fancy-index gather (take_along_axis on the 3-D view
-    # measured ~4 s per 65k chunk; the flat gather is ~5x faster), slack
+    # ONE flat fancy-index gather (faster on the host than a
+    # take_along_axis on the 3-D view), slack
     # columns as unit entries scattered flat instead of materializing a
     # (B, m, m) one-hot tensor.
     idt = np.int32 if B_ * m * n < 2**31 else np.int64

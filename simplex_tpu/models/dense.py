@@ -5,7 +5,7 @@ Plays the role scipy/HiGHS plays in the reference
 scipy-compatible result object (``success`` / ``status`` / ``x`` / ``fun`` /
 ``message``) so the orchestration layer keeps the same contract.
 
-Numerics: the pivot loop runs on device in float32 (TPU-native); when
+Numerics: the pivot loop runs on device in float32; when
 ``config.refine`` is set the final basis system ``B x_B = b`` is re-solved on
 host in float64, recovering 1e-6+ objective parity with the CPU reference
 (SURVEY.md §7 "numerical tolerance in f32").
@@ -860,9 +860,6 @@ def solve_lp(lp: LinearProgram,
             bland_after=int(bland_after),
             refactor_every=int(refactor_every),
             devex=config.pivot_rule == "devex",
-            # XLA's on-device LU overflows the 16 MB scoped-VMEM cap above
-            # m ~ 11k; switch to the LU-free Newton resync there.
-            newton_drift=sf.m_pad > 8192,
         )
         status = int(status)
         basis_np = np.asarray(basis)
@@ -997,16 +994,13 @@ def reoptimize(lp: LinearProgram, basis: np.ndarray,
 
     tol = float(config.tol if dtype == np.float64 else max(config.tol, 1e-6))
     max_iters = min(config.max_iters, 50 * (m_pad + n_pad))
-    if 4096 < m_pad <= 8192:
+    if m_pad > 4096:
         # Large-m path: the O(m^3) + O(m^2 n) warm refactorization runs
         # ON DEVICE (refactor_tableau — the same LU the dual loop's
-        # periodic drift control uses; its scoped-VMEM ceiling is
-        # ~m=11k).  Only the objective row (n_pad floats) returns to host
-        # for the dual-feasibility gate; the f64 certification below
-        # guards the f32 factorization exactly like everywhere else.
-        # Above 8192 the host f64 path resumes (the on-device LU block
-        # overflows scoped VMEM near 11k — same threshold as
-        # models/dense.py newton_drift).
+        # periodic drift control uses).  Only the objective row (n_pad
+        # floats) returns to host for the dual-feasibility gate; the f64
+        # certification below guards the f32 factorization exactly like
+        # everywhere else.
         T_dev = tableau_ops.refactor_tableau(
             jnp.asarray(sf.tableau[:m_pad], dtype), jnp.asarray(basis),
             jnp.asarray(sf.obj_row_p2, dtype))

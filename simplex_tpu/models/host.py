@@ -3,7 +3,7 @@
 The framework's CPU-native engine — the role HiGHS C++ plays for the
 reference (``solver_controller.py:78-85``), implemented from scratch in
 ``runtime/native/simplex_host.cpp``.  Use cases: tiny problems where device
-dispatch latency dominates, float64 differential checks against the TPU
+dispatch latency dominates, float64 differential checks against the device
 kernels, and environments without an accelerator.
 """
 from __future__ import annotations

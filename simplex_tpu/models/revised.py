@@ -2,35 +2,32 @@
 
 BASELINE config 4 ("netlib-style LPs via revised simplex with
 basis-factorization updates").  Where the dense tableau engine rewrites the
-whole (m x n) tableau every pivot (HBM-bound), the revised method keeps only
-the m x m basis inverse and the original column data:
+whole (m x n) tableau every pivot (memory-bound), the revised method keeps
+only the m x m basis inverse and the original column data:
 
-  pricing:    pi = c_B  B_inv        (m^2 MXU work)
-              rc = c - pi A          (m*n matvec — the only O(mn) op,
-                                      a clean MXU contraction over A)
+  pricing:    pi = c_B  B_inv        (m^2 matvec)
+              rc = c - pi A          (m*n matvec — the only O(mn) op)
   FTRAN:      d  = B_inv a_s         (m^2)
   update:     eta rank-1 on B_inv    (m^2), periodic exact refactorization
               via jnp.linalg.solve   (m^3, amortized)
 
 so for n >> m (netlib-shaped: many columns, fewer rows) per-pivot cost drops
-from O(mn) HBM traffic to O(m^2) + one matvec.  Phase handling matches
+from O(mn) memory traffic to O(m^2) + one matvec.  Phase handling matches
 ``ops/tableau.py``; basic artificials are driven out in phase 2 by the
 ratio-test preference used in the sharded kernel (``parallel/sharded.py``).
 
-Why explicit inverse + periodic dense refactor, NOT an LU/eta file
-(deliberate TPU design, not an omission): CPU production codes keep a
-sparse LU of B and append eta vectors because their FTRAN/BTRAN are
-cache-friendly sparse triangular solves.  On TPU, triangular solves are
-SEQUENTIAL along the diagonal (no MXU utilization, one lane busy), while
-the explicit-inverse update is a rank-1 dense operation and every
-FTRAN/BTRAN/PRICE is a dense matvec — exactly what the MXU streams at
-full rate.  The LU lives WHERE it belongs: inside the periodic
-``jnp.linalg.solve`` refactorization (device LAPACK, O(m^3) amortized
-over ``refactor_every`` pivots), which also bounds the inverse-drift the
-eta-style rank-1 updates accumulate.  Sparsity in A is likewise not
-exploited at the instruction level: netlib-scale dense matvecs are
-bandwidth-trivial for the MXU, and irregular gather/scatter sparsity
-fights the (8, 128) tiling (SURVEY.md §7 "hard parts").
+Why explicit inverse + periodic dense refactor, NOT an LU/eta file: CPU
+production codes keep a sparse LU of B and append eta vectors because their
+FTRAN/BTRAN are cache-friendly sparse triangular solves.  On an accelerator
+a triangular solve is sequential along the diagonal, while the
+explicit-inverse update is a rank-1 dense operation and every
+FTRAN/BTRAN/PRICE is a dense matvec that streams at memory bandwidth.  The
+LU lives inside the periodic ``jnp.linalg.solve`` refactorization (O(m^3)
+amortized over ``refactor_every`` pivots), which also bounds the
+inverse-drift the eta-style rank-1 updates accumulate.  Sparsity in A is
+not exploited: netlib-scale dense matvecs are cheap on the device
+(SURVEY.md §7 "hard parts").  Every contraction states
+``precision=HIGHEST``: a float32 product may run in TF32 on the GPU.
 
 Numerics: float32 on device with f64 host verdict certification +
 refinement of the final basis (same policy as models/dense), plus a
@@ -71,6 +68,11 @@ from .dense import (
 RUNNING = -1
 _INT_MAX = jnp.iinfo(jnp.int32).max
 _ART_BONUS = 1 << 20
+_HI = lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HI)
 
 
 def _refactor(A_std, b, basis, at_upper=None, ub=None):
@@ -83,11 +85,11 @@ def _refactor(A_std, b, basis, at_upper=None, ub=None):
     eye = jnp.eye(B.shape[0], dtype=A_std.dtype)
     B_inv = jnp.linalg.solve(B, eye)
     if at_upper is None:
-        x_B = B_inv @ b
+        x_B = _mm(B_inv, b)
     else:
         ub_safe = jnp.where(jnp.isfinite(ub), ub, 0.0)
         u_vec = jnp.where(at_upper, ub_safe, 0.0)
-        x_B = B_inv @ (b - A_std @ u_vec)
+        x_B = _mm(B_inv, b - _mm(A_std, u_vec))
     return B_inv, x_B
 
 
@@ -122,7 +124,7 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
 
     ``devex``: Forrest-Goldfarb reference-weight pricing.  The weight
     update needs the transformed pivot row ``alpha = B_inv[r] @ A_std`` —
-    one extra O(mn) MXU matvec per pivot (BTRAN+PRICE in production
+    one extra O(mn) matvec per pivot (BTRAN+PRICE in production
     terms), typically repaid severalfold in saved iterations.
     """
 
@@ -148,8 +150,8 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
 
         # Pricing: dual-infeasibility magnitude per nonbasic column.
         c_B = cost[basis]
-        pi = c_B @ B_inv                                   # (m,)
-        rc = cost[:-1] - pi @ A_std                        # (n,)
+        pi = _mm(c_B, B_inv)                               # (m,)
+        rc = cost[:-1] - _mm(pi, A_std)                    # (n,)
         elig_lo = col_mask & ~at_upper & (rc < -tol)
         elig_up = col_mask & at_upper & (rc > tol)
         eligible = elig_lo | elig_up
@@ -168,7 +170,7 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
 
         # FTRAN.  sigma = +1 entering from lower (x_s increases), -1 from
         # upper (x_s decreases); basics move as x_B(t) = x_B - sigma t d.
-        d = B_inv @ A_std[:, s]                            # (m,)
+        d = _mm(B_inv, A_std[:, s])                        # (m,)
         sigma = jnp.where(at_upper[s], -1.0, 1.0).astype(x_B.dtype)
         dd = sigma * d
         is_art_row = art_mask_ext[basis]
@@ -220,7 +222,7 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
             B_inv, x_B, basis, at_upper, w = args
             dr = d[r]
             if devex:
-                alpha = (B_inv[r] @ A_std) / dr            # pivot row
+                alpha = _mm(B_inv[r], A_std) / dr          # pivot row
                 w_s = w[s]
                 w_new = jnp.maximum(w, (alpha * alpha) * w_s)
                 w_new = w_new.at[basis[r]].set(jnp.maximum(w_s, 1.0))
@@ -249,7 +251,7 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
 
         # Objective incl. at-upper nonbasic contributions (for the
         # stall gate only — verdicts come from the f64 finalize).
-        obj = cost[basis] @ x_B + jnp.sum(
+        obj = _mm(cost[basis], x_B) + jnp.sum(
             jnp.where(at_upper, cost[:-1] * ub_safe, 0.0))
         improved = obj < best_obj - tol * (1.0 + jnp.abs(best_obj))
         best_obj = jnp.minimum(best_obj, obj)
@@ -267,7 +269,7 @@ def _run_phase_revised(A_std, b, cost, col_mask, art_mask_ext,
     (B_inv, x_B, basis, at_upper, iters, status, _, _, _, _) = \
         lax.while_loop(cond, body, state)
     status = jnp.where(status == RUNNING, STATUS_ITERATION_LIMIT, status)
-    obj = cost[basis] @ x_B + jnp.sum(
+    obj = _mm(cost[basis], x_B) + jnp.sum(
         jnp.where(at_upper, cost[:-1] * ub_safe, 0.0))
     return B_inv, x_B, basis, at_upper, iters, status, obj
 

@@ -1,16 +1,16 @@
 """Batched tableau-simplex kernel: one padded shape, many LP instances.
 
 The reference solves one LP per HTTP request (``solver_controller.py:53-120``);
-the TPU-native scale axis is **instance batching** (BASELINE config 2: 10k
-random 50x30 LPs vmapped on one chip).  Design notes:
+the accelerator's scale axis is **instance batching** (BASELINE config 2:
+10k random 50x30 LPs vmapped on one chip).  Design notes:
 
 * One ``lax.while_loop`` advances ALL instances together; finished instances
   are frozen by masking instead of exiting (SURVEY.md §7 "batched while_loop
   efficiency").  The loop ends when every instance has a verdict or the
   iteration cap is hit.
 * No data-dependent branching inside the body: periodic refactorization is
-  applied to every instance on the same schedule (a batched ``linalg.solve``
-  — MXU work), so there is no per-instance control-flow divergence.  Unlike
+  applied to every instance on the same schedule (a batched
+  ``linalg.solve``), so there is no per-instance control-flow divergence.  Unlike
   the single-LP kernel (ops/tableau.py), terminal verdicts are accepted
   directly from the incrementally-updated tableau: confirm-refactors would
   fire nearly every iteration at batch scale.  Drift control comes from the
@@ -21,6 +21,10 @@ random 50x30 LPs vmapped on one chip).  Design notes:
 * Phases are fused: each instance carries a ``phase`` flag; pricing uses the
   phase-appropriate objective row and column mask, and a phase-1→2 flip is a
   masked artificial eviction + objective-row swap, not a host round-trip.
+* Gathers of a pivot column, row or basis columns are index gathers, never
+  one-hot contractions: a float32 product may run in TF32 on the GPU and
+  would round every gathered entry.  The contractions that remain state
+  ``precision=HIGHEST``.
 """
 from __future__ import annotations
 
@@ -39,17 +43,26 @@ from ..core.problem import (
 
 RUNNING = -1
 _INT_MAX = jnp.iinfo(jnp.int32).max
-
+_HI = lax.Precision.HIGHEST
 
 def _gather_col(T, s):
-    """Column ``T[b, :, s[b]]`` per instance as a one-hot MXU contraction.
+    """Column ``T[b, :, s[b]]`` per instance."""
+    return jnp.take_along_axis(T, s[:, None, None], axis=2)[:, :, 0]
 
-    ``take_along_axis`` along the lane (last) axis compiles to a slow
-    multi-pass gather on TPU; the einsum reads T exactly once and runs on
-    the MXU.
-    """
-    hot = jax.nn.one_hot(s, T.shape[2], dtype=T.dtype)      # (B, N)
-    return jnp.einsum("bmn,bn->bm", T, hot)
+
+def _gather_row(T, r):
+    """Row ``T[b, r[b], :]`` per instance."""
+    return jnp.take_along_axis(T, r[:, None, None], axis=1)[:, 0, :]
+
+
+def _gather_lane(x, j):
+    """``x[b, j[b]]`` per instance."""
+    return jnp.take_along_axis(x, j[:, None], axis=1)[:, 0]
+
+
+def _basis_cols(T_rows, basis):
+    """``T_rows[b, :, basis[b, i]]`` -> (B, m, m): the basis columns."""
+    return jnp.take_along_axis(T_rows, basis[:, None, :], axis=2)
 
 
 def _select_pivot_b(T, basis, col_mask, tol, use_bland, weights=None):
@@ -111,15 +124,12 @@ def _devex_update_b(w, T, basis, r, s, active):
     instance's reference framework resets when its weights overflow 1e8 —
     per instance, applied only where ``active``.
     """
-    B, M, N = T.shape
-    n = N - 1
-    row_hot = jax.nn.one_hot(r, M, dtype=T.dtype)
-    piv_row = jnp.einsum("bm,bmn->bn", row_hot, T)[:, :n]       # (B, n)
-    col_hot = jax.nn.one_hot(s, n, dtype=T.dtype)
-    pivot = jnp.einsum("bn,bn->b", piv_row, col_hot)
+    n = T.shape[2] - 1
+    piv_row = _gather_row(T, r)[:, :n]                          # (B, n)
+    pivot = _gather_lane(piv_row, s)
     safe = jnp.where(jnp.abs(pivot) > 0, pivot, 1.0)
     alpha = piv_row / safe[:, None]
-    w_s = jnp.einsum("bn,bn->b", w, col_hot)                    # (B,)
+    w_s = _gather_lane(w, s)                                    # (B,)
     w_new = jnp.maximum(w, (alpha * alpha) * w_s[:, None])
     idx = jnp.arange(n, dtype=jnp.int32)[None, :]
     j_out = jnp.take_along_axis(basis, r[:, None], axis=1)      # (B, 1)
@@ -141,10 +151,8 @@ def _pivot_update_b(T, basis, r, s, active, clamp_rhs: bool = False):
     Eviction sweeps keep the exact step (their pivot sign is arbitrary
     and levels are ~0)."""
     B, M, N = T.shape
-    row_hot_f = jax.nn.one_hot(r, M, dtype=T.dtype)              # (B, M)
-    piv_row = jnp.einsum("bm,bmn->bn", row_hot_f, T)             # row gather
-    col_hot_f = jax.nn.one_hot(s, N, dtype=T.dtype)              # (B, N)
-    pivot = jnp.einsum("bn,bn->b", piv_row, col_hot_f)
+    piv_row = _gather_row(T, r)                                  # (B, N)
+    pivot = _gather_lane(piv_row, s)
     safe_pivot = jnp.where(active & (jnp.abs(pivot) > 0), pivot, 1.0)
     piv_row = piv_row / safe_pivot[:, None]
     if clamp_rhs:
@@ -171,7 +179,8 @@ def _pivot_update_b(T, basis, r, s, active, clamp_rhs: bool = False):
 def _price_out_b(T, basis, obj_row):
     """Batched objective install + price-out against the current basis."""
     basis_costs = jnp.take_along_axis(obj_row, basis, axis=1)     # (B, m)
-    obj2 = obj_row - jnp.einsum("bm,bmn->bn", basis_costs, T[:, :-1, :])
+    obj2 = obj_row - jnp.einsum("bm,bmn->bn", basis_costs, T[:, :-1, :],
+                                precision=_HI)
     return T.at[:, -1, :].set(obj2)
 
 
@@ -197,29 +206,26 @@ def _refine_solution_b(T, basis, basis0, T0_rows, raw_obj):
     """Iterative refinement of the reported solution (RHS column + objective).
 
     The full exact refactor (`_refactor_b`) runs a batched tiny-LU
-    ``linalg.solve`` that costs ~175 ms at B=16k×31×31 on v5e — more than the
-    whole pivot loop — yet only the RHS column and objective cell of its
-    output feed :func:`extract_solution_batch`.  Instead, polish x_B with one
-    Newton step using the approximate inverse ALREADY EMBEDDED in the
-    incremental tableau: the initial basis ``basis0`` indexes the identity
-    columns of T0 (slack for <=, artificial for >=/=, unit pads), so
-    ``M = T_rows[:, :, basis0] ≈ B^{-1}`` up to the same drift as the
-    tableau.  One step squares the drift (e ~ 1e-4 → 1e-8) for three small
-    batched MXU contractions; the update is kept only where it reduces the
-    residual, so a badly-drifted instance can never be made worse.
+    ``linalg.solve`` over every instance, yet only the RHS column and
+    objective cell of its output feed :func:`extract_solution_batch`.
+    Instead, polish x_B with one Newton step using the approximate inverse
+    ALREADY EMBEDDED in the incremental tableau: the initial basis
+    ``basis0`` indexes the identity columns of T0 (slack for <=, artificial
+    for >=/=, unit pads), so ``M = T_rows[:, :, basis0] ≈ B^{-1}`` up to the
+    same drift as the tableau.  One step squares the drift (e ~ 1e-4 →
+    1e-8) for three small batched matvecs; the update is kept only where it
+    reduces the residual, so a badly-drifted instance can never be made
+    worse.
     """
     T_rows = T[:, :-1, :]
-    nc = T0_rows.shape[2]
-    hot_b = jax.nn.one_hot(basis, nc, dtype=T.dtype)
-    Bmat = jnp.einsum("bkn,bin->bki", T0_rows, hot_b)   # (B, mp, mp)
-    hot0 = jax.nn.one_hot(basis0, nc, dtype=T.dtype)
-    Minv = jnp.einsum("bkn,bin->bki", T_rows, hot0)     # ~ B^{-1}
+    Bmat = _basis_cols(T0_rows, basis)                  # (B, mp, mp)
+    Minv = _basis_cols(T_rows, basis0)                  # ~ B^{-1}
 
     b0 = T0_rows[:, :, -1]
     xB = T[:, :-1, -1]
-    r0 = b0 - jnp.einsum("bij,bj->bi", Bmat, xB)
-    xB1 = xB + jnp.einsum("bij,bj->bi", Minv, r0)
-    r1 = b0 - jnp.einsum("bij,bj->bi", Bmat, xB1)
+    r0 = b0 - jnp.einsum("bij,bj->bi", Bmat, xB, precision=_HI)
+    xB1 = xB + jnp.einsum("bij,bj->bi", Minv, r0, precision=_HI)
+    r1 = b0 - jnp.einsum("bij,bj->bi", Bmat, xB1, precision=_HI)
     better = (jnp.sum(r1 * r1, axis=-1) < jnp.sum(r0 * r0, axis=-1)) \
         & jnp.all(jnp.isfinite(xB1), axis=-1)
     xB_out = jnp.where(better[:, None], xB1, xB)
@@ -234,18 +240,14 @@ def _refine_solution_b(T, basis, basis0, T0_rows, raw_obj):
 def _refactor_b(T, basis, T0_rows, raw_obj, active):
     """Batched exact recomputation of tableaus from (T0, basis).
 
-    ``B = T0_rows[:, :, basis]`` per instance; a batched dense solve (MXU).
+    ``B = T0_rows[:, :, basis]`` per instance; a batched dense solve.
     Instances that are inactive or whose basis matrix is singular keep their
     incremental tableau.
     """
-    # Basis-column extraction as a one-hot batched matmul (lane-axis
-    # take_along_axis is a slow multi-pass gather on TPU):
-    # Bmat[b, k, i] = T0_rows[b, k, basis[b, i]].
-    hot = jax.nn.one_hot(basis, T0_rows.shape[2], dtype=T0_rows.dtype)
-    Bmat = jnp.einsum("bkn,bin->bki", T0_rows, hot)
-    T_rows = jnp.linalg.solve(Bmat, T0_rows)
+    T_rows = jnp.linalg.solve(_basis_cols(T0_rows, basis), T0_rows)
     basis_costs = jnp.take_along_axis(raw_obj, basis, axis=1)
-    obj = raw_obj - jnp.einsum("bm,bmn->bn", basis_costs, T_rows)
+    obj = raw_obj - jnp.einsum("bm,bmn->bn", basis_costs, T_rows,
+                               precision=_HI)
     T_new = jnp.concatenate([T_rows, obj[:, None, :]], axis=1)
     ok = active & jnp.all(jnp.isfinite(T_new), axis=(1, 2))
     return jnp.where(ok[:, None, None], T_new, T)
@@ -254,13 +256,13 @@ def _refactor_b(T, basis, T0_rows, raw_obj, active):
 @functools.partial(
     jax.jit,
     static_argnames=("tol", "max_iters", "bland_after", "feas_tol",
-                     "refactor_every", "backend", "devex", "phase2_only"),
+                     "refactor_every", "devex", "phase2_only"),
 )
 def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
                         obj_row_p1, obj_row_p2, need_p1,
                         tol: float = 1e-6, max_iters: int = 4096,
                         bland_after: int = 1024, feas_tol: float = 1e-5,
-                        refactor_every: int = 64, backend: str = "auto",
+                        refactor_every: int = 64,
                         devex: bool = False, phase2_only: bool = False):
     """Solve a batch of LPs sharing one padded tableau shape.
 
@@ -279,45 +281,20 @@ def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
     per-instance with scipy-compatible codes, ``iters`` the shared loop
     trip count, ``pivots`` the per-instance pivot counts.
 
-    ``backend`` selects the per-iteration step implementation:
-    ``"pallas"`` fuses pricing + ratio test + pivot update into one Pallas
-    kernel (one HBM read + write of the tableau tensor per iteration);
-    ``"xla"`` keeps the unfused einsum/one-hot formulation; ``"auto"``
-    picks pallas on TPU, xla elsewhere; ``"pallas_interpret"`` runs the
-    kernel in interpreter mode (CPU tests).
-
     ``devex`` switches pricing to per-instance Forrest-Goldfarb reference
     weights (the 4x+ pivot-count reduction the single-chip kernels measure
-    on large LPs, VERDICT r1 weak #2), threaded through both backends the
-    same way the per-instance Bland flags are.
+    on large LPs, VERDICT r1 weak #2), threaded per instance the same way
+    the Bland flags are.
 
     ``phase2_only`` (STATIC; caller asserts every instance starts in
     phase 2, i.e. ``need_p1`` is all-False — true for every all-<= sweep
     after sign normalization): runs a fast two-level loop with NO
     per-iteration ``lax.cond``.  The identity branches of the refactor and
-    phase-flip conds force XLA to copy the whole tableau every iteration
-    (~3.5 ms/iter of pure copy at B=16k x 30x50 on v5e, round-5 probe —
-    the same pathology as the sharded kernel's round-4 resync cond);
+    phase-flip conds can force XLA to copy the whole tableau every
+    iteration (the same pathology as the sharded kernel's resync cond);
     chunking the refactor to the boundary of an inner while_loop removes
     both copies.
     """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas":
-        # Mosaic requires each block's second-to-last dim divisible by 8
-        # (or equal to the array dim); _pick_block_b returns a power of
-        # two DIVIDING B, so a batch count with few factors of 2 (e.g. an
-        # odd escalation subset) cannot produce a legal block — run the
-        # XLA step instead of failing to lower.
-        from . import pallas_batched as _pb
-
-        bb = _pb._pick_block_b(T0.shape[0], T0.shape[1], T0.shape[2])
-        if bb % 8 != 0 and bb != T0.shape[0]:
-            backend = "xla"
-    use_pallas = backend in ("pallas", "pallas_interpret")
-    if use_pallas:
-        from . import pallas_batched
-
     Bsz = T0.shape[0]
     b_scale = 1.0 + jnp.max(jnp.abs(T0[:, :-1, -1]), axis=1)
     T0_rows = T0[:, :-1, :]
@@ -327,38 +304,21 @@ def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
 
     phase0 = jnp.where(need_p1, jnp.int32(1), jnp.int32(2))
 
-    if use_pallas:
-        # Float column masks with an explicit zero RHS lane, shaped like the
-        # tableau's column axis — loop-invariant kernel inputs.
-        zero_lane = jnp.zeros((Bsz, 1), T0.dtype)
-        cm1f = jnp.concatenate([col_mask_p1.astype(T0.dtype), zero_lane], 1)
-        cm2f = jnp.concatenate([col_mask_p2.astype(T0.dtype), zero_lane], 1)
-
     if phase2_only:
         # -------- FAST PATH: no per-iteration lax.cond (see docstring) -- #
-        phase2 = jnp.full((Bsz,), 2, jnp.int32)
-
         def istep(state):
             (T, basis, status, iters, chunk, pivots, best_obj, no_imp,
              w) = state
             live = status == RUNNING
             use_bland = no_imp >= bland_after
-            if use_pallas:
-                T, basis, w, s, r, optimal, unbounded, active = (
-                    pallas_batched.fused_pivot_step(
-                        T, basis, cm2f, cm2f, phase2, status,
-                        use_bland.astype(jnp.int32), w, tol=tol,
-                        devex=devex,
-                        interpret=(backend == "pallas_interpret")))
-            else:
-                s, r, optimal, unbounded = _select_pivot_b(
-                    T, basis, col_mask_p2, tol, use_bland,
-                    weights=w if devex else None)
-                active = live & ~optimal & ~unbounded
-                if devex:
-                    w = _devex_update_b(w, T, basis, r, s, active)
-                T, basis = _pivot_update_b(T, basis, r, s, active,
-                                           clamp_rhs=True)
+            s, r, optimal, unbounded = _select_pivot_b(
+                T, basis, col_mask_p2, tol, use_bland,
+                weights=w if devex else None)
+            active = live & ~optimal & ~unbounded
+            if devex:
+                w = _devex_update_b(w, T, basis, r, s, active)
+            T, basis = _pivot_update_b(T, basis, r, s, active,
+                                       clamp_rhs=True)
             want_stop = (optimal | unbounded) & live
             status = jnp.where(
                 want_stop & optimal, STATUS_OPTIMAL,
@@ -435,21 +395,9 @@ def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
             T,
         )
 
-        if use_pallas:
-            # Fused select+pivot: instances that come back optimal/unbounded
-            # (or are not RUNNING) pass through the kernel untouched, so the
-            # phase-flip logic below still sees their pre-pivot tableaus.
-            T, basis, w, s, r, optimal, unbounded, did_pivot = (
-                pallas_batched.fused_pivot_step(
-                    T, basis, cm1f, cm2f, phase, status,
-                    use_bland.astype(jnp.int32), w, tol=tol, devex=devex,
-                    interpret=(backend == "pallas_interpret"),
-                )
-            )
-        else:
-            s, r, optimal, unbounded = _select_pivot_b(
-                T, basis, col_mask, tol, use_bland,
-                weights=w if devex else None)
+        s, r, optimal, unbounded = _select_pivot_b(
+            T, basis, col_mask, tol, use_bland,
+            weights=w if devex else None)
         want_stop = (optimal | unbounded) & live
 
         # --- Phase-1 completion --------------------------------------- #
@@ -486,17 +434,11 @@ def solve_tableau_batch(T0, basis0, col_mask_p1, col_mask_p2,
         )
 
         # --- Pivot all still-running, non-flipping instances ------------ #
-        if use_pallas:
-            # The fused kernel already applied the update to exactly this
-            # set (live & ~optimal & ~unbounded == active: to_p2 and the
-            # newly-terminal instances are all inside optimal|unbounded).
-            active = did_pivot
-        else:
-            active = ((status == RUNNING) & ~to_p2 & live
-                      & ~optimal & ~unbounded)
-            if devex:
-                w = _devex_update_b(w, T, basis, r, s, active)
-            T, basis = _pivot_update_b(T, basis, r, s, active, clamp_rhs=True)
+        active = ((status == RUNNING) & ~to_p2 & live
+                  & ~optimal & ~unbounded)
+        if devex:
+            w = _devex_update_b(w, T, basis, r, s, active)
+        T, basis = _pivot_update_b(T, basis, r, s, active, clamp_rhs=True)
         pivots = pivots + active.astype(pivots.dtype)
 
         # Objective-progress tracking for the stall-gated Bland switch
@@ -566,20 +508,17 @@ def _refine_solution_bounded_b(T, basis, basis0, T0_rows, raw_obj,
     taken against the at-upper-adjusted RHS ``b_eff = b0 - A u_U`` and the
     reported objective includes the at-upper nonbasic contributions."""
     T_rows = T[:, :-1, :]
-    nc = T0_rows.shape[2]
-    hot_b = jax.nn.one_hot(basis, nc, dtype=T.dtype)
-    Bmat = jnp.einsum("bkn,bin->bki", T0_rows, hot_b)
-    hot0 = jax.nn.one_hot(basis0, nc, dtype=T.dtype)
-    Minv = jnp.einsum("bkn,bin->bki", T_rows, hot0)
+    Bmat = _basis_cols(T0_rows, basis)
+    Minv = _basis_cols(T_rows, basis0)
 
     ub_safe = jnp.where(jnp.isfinite(ub), ub, 0.0)
     u_vec = jnp.where(at_upper, ub_safe, 0.0)                 # (B, n)
     b_eff = T0_rows[:, :, -1] - jnp.einsum(
-        "bkn,bn->bk", T0_rows[:, :, :-1], u_vec)
+        "bkn,bn->bk", T0_rows[:, :, :-1], u_vec, precision=_HI)
     xB = T[:, :-1, -1]
-    r0 = b_eff - jnp.einsum("bij,bj->bi", Bmat, xB)
-    xB1 = xB + jnp.einsum("bij,bj->bi", Minv, r0)
-    r1 = b_eff - jnp.einsum("bij,bj->bi", Bmat, xB1)
+    r0 = b_eff - jnp.einsum("bij,bj->bi", Bmat, xB, precision=_HI)
+    xB1 = xB + jnp.einsum("bij,bj->bi", Minv, r0, precision=_HI)
+    r1 = b_eff - jnp.einsum("bij,bj->bi", Bmat, xB1, precision=_HI)
     better = (jnp.sum(r1 * r1, axis=-1) < jnp.sum(r0 * r0, axis=-1)) \
         & jnp.all(jnp.isfinite(xB1), axis=-1)
     xB_out = jnp.where(better[:, None], xB1, xB)
@@ -596,17 +535,16 @@ def _refactor_bounded_b(T, basis, at_upper, ub, T0_rows, raw_obj, active):
     """Bounded exact refactorization: ``B^{-1} A`` and the reduced costs are
     bound-independent, but the RHS column solves against the at-upper-
     adjusted ``b_eff`` and the objective cell adds the at-upper terms."""
-    hot = jax.nn.one_hot(basis, T0_rows.shape[2], dtype=T0_rows.dtype)
-    Bmat = jnp.einsum("bkn,bin->bki", T0_rows, hot)
     ub_safe = jnp.where(jnp.isfinite(ub), ub, 0.0)
     u_vec = jnp.where(at_upper, ub_safe, 0.0)
     b_eff = T0_rows[:, :, -1] - jnp.einsum(
-        "bkn,bn->bk", T0_rows[:, :, :-1], u_vec)
+        "bkn,bn->bk", T0_rows[:, :, :-1], u_vec, precision=_HI)
     rhs_all = jnp.concatenate(
         [T0_rows[:, :, :-1], b_eff[:, :, None]], axis=2)
-    T_rows = jnp.linalg.solve(Bmat, rhs_all)
+    T_rows = jnp.linalg.solve(_basis_cols(T0_rows, basis), rhs_all)
     basis_costs = jnp.take_along_axis(raw_obj, basis, axis=1)
-    obj = raw_obj - jnp.einsum("bm,bmn->bn", basis_costs, T_rows)
+    obj = raw_obj - jnp.einsum("bm,bmn->bn", basis_costs, T_rows,
+                               precision=_HI)
     z_min = jnp.sum(basis_costs * T_rows[:, :, -1], axis=-1) + jnp.sum(
         jnp.where(at_upper, raw_obj[:, :-1] * ub_safe, 0.0), axis=-1)
     obj = obj.at[:, -1].set(-z_min)
@@ -618,7 +556,7 @@ def _refactor_bounded_b(T, basis, at_upper, ub, T0_rows, raw_obj, active):
 @functools.partial(
     jax.jit,
     static_argnames=("tol", "max_iters", "bland_after", "feas_tol",
-                     "refactor_every", "backend", "devex", "phase2_only"),
+                     "refactor_every", "devex", "phase2_only"),
 )
 def solve_tableau_batch_bounded(T0, basis0, col_mask_p1, col_mask_p2,
                                 obj_row_p1, obj_row_p2, need_p1, ub,
@@ -626,7 +564,6 @@ def solve_tableau_batch_bounded(T0, basis0, col_mask_p1, col_mask_p2,
                                 bland_after: int = 1024,
                                 feas_tol: float = 1e-5,
                                 refactor_every: int = 64,
-                                backend: str = "auto",
                                 devex: bool = False,
                                 phase2_only: bool = False):
     """Batched tableau simplex with NATIVE upper bounds ``0 <= x <= ub``.
@@ -657,27 +594,12 @@ def solve_tableau_batch_bounded(T0, basis0, col_mask_p1, col_mask_p2,
     must be masked out of ``col_mask_*`` by the compiler — a zero-span
     variable would flip forever.
 
-    ``backend`` mirrors :func:`solve_tableau_batch`: ``"pallas"`` runs the
-    fused bounded step (``pallas_batched.fused_pivot_step_bounded`` — one
-    HBM read + write of the tableau per iteration), ``"xla"`` the unfused
-    formulation, ``"auto"`` picks pallas on TPU.  ``phase2_only`` (static,
+    ``phase2_only`` (static,
     caller asserts need_p1 all-False) removes the per-iteration lax.conds
     exactly as in :func:`solve_tableau_batch`.
 
     Returns ``(T, basis, at_upper, status, iters, pivots)``.
     """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas":
-        from . import pallas_batched as _pb
-
-        bb = _pb._pick_block_b_bounded(T0.shape[0], T0.shape[1], T0.shape[2])
-        if bb % 8 != 0 and bb != T0.shape[0]:
-            backend = "xla"
-    use_pallas = backend in ("pallas", "pallas_interpret")
-    if use_pallas:
-        from . import pallas_batched
-
     Bsz = T0.shape[0]
     N = T0.shape[2] - 1
     b_scale = 1.0 + jnp.max(jnp.abs(T0[:, :-1, -1]), axis=1)
@@ -690,146 +612,127 @@ def solve_tableau_batch_bounded(T0, basis0, col_mask_p1, col_mask_p2,
     col_idx = jnp.arange(N, dtype=jnp.int32)[None, :]
     _ART = jnp.asarray(1e30, T0.dtype)
 
-    if use_pallas:
-        zero_lane = jnp.zeros((Bsz, 1), T0.dtype)
-        cm1f = jnp.concatenate([col_mask_p1.astype(T0.dtype), zero_lane], 1)
-        cm2f = jnp.concatenate([col_mask_p2.astype(T0.dtype), zero_lane], 1)
-        art_f = art_mask_ext.astype(T0.dtype)
-        ub_k = jnp.asarray(ub, T0.dtype)
-
     if phase2_only:
         # -------- FAST PATH: no per-iteration lax.cond ------------------ #
         # Same two-level chunked structure as the classic driver's fast
         # path (see solve_tableau_batch docstring).  phase2_only implies
         # need_p1 is all-False, hence NO artificial columns exist in the
         # batch (the compiler only allocates the artificial block when a
-        # row needs one), so the artificial-exit machinery is dead: the
-        # XLA step below drops it, and the fused kernel sees an all-zero
-        # art mask.
-        phase2 = jnp.full((Bsz,), 2, jnp.int32)
-
+        # row needs one), so the artificial-exit machinery is dead and the
+        # step below drops it.
         def istep(state):
             (T, basis, at_upper, status, iters, chunk, pivots, best_obj,
              no_imp, w, ub_B, is_art_row) = state
             live = status == RUNNING
             use_bland = no_imp >= bland_after
-            if use_pallas:
-                (T, basis, at_upper, w, ub_B, is_art_row, s, r, optimal,
-                 unbounded, moving) = pallas_batched.fused_pivot_step_bounded(
-                    T, basis, at_upper, cm2f, cm2f, phase2, status,
-                    use_bland.astype(jnp.int32), w, ub_k, ub_B, is_art_row,
-                    art_f, tol=tol, devex=devex,
-                    interpret=(backend == "pallas_interpret"),
-                    with_art=False)
+            rc = T[:, -1, :-1]
+            elig_lo = col_mask_p2 & ~at_upper & (rc < -tol)
+            elig_up = col_mask_p2 & at_upper & (rc > tol)
+            eligible = elig_lo | elig_up
+            viol = jnp.where(eligible, jnp.abs(rc), -jnp.inf)
+            if devex:
+                score = jnp.where(eligible, (viol * viol) / w,
+                                  -jnp.inf)
+                s_price = jnp.argmax(score, axis=-1)
             else:
-                rc = T[:, -1, :-1]
-                elig_lo = col_mask_p2 & ~at_upper & (rc < -tol)
-                elig_up = col_mask_p2 & at_upper & (rc > tol)
-                eligible = elig_lo | elig_up
-                viol = jnp.where(eligible, jnp.abs(rc), -jnp.inf)
-                if devex:
-                    score = jnp.where(eligible, (viol * viol) / w,
-                                      -jnp.inf)
-                    s_price = jnp.argmax(score, axis=-1)
-                else:
-                    s_price = jnp.argmax(viol, axis=-1)
-                s_bland = jnp.argmax(eligible, axis=-1)
-                s = jnp.where(use_bland, s_bland, s_price)
-                optimal = ~jnp.any(eligible, axis=-1)
+                s_price = jnp.argmax(viol, axis=-1)
+            s_bland = jnp.argmax(eligible, axis=-1)
+            s = jnp.where(use_bland, s_bland, s_price)
+            optimal = ~jnp.any(eligible, axis=-1)
 
-                s_from_up = jnp.take_along_axis(
-                    at_upper, s[:, None], axis=1)[:, 0]
-                sigma = jnp.where(s_from_up, -1.0, 1.0).astype(T.dtype)
-                rc_s = jnp.take_along_axis(rc, s[:, None], axis=1)[:, 0]
-                ub_s = jnp.take_along_axis(ub, s[:, None], axis=1)[:, 0]
-                ub_s_safe = jnp.where(jnp.isfinite(ub_s), ub_s, 0.0)
+            s_from_up = jnp.take_along_axis(
+                at_upper, s[:, None], axis=1)[:, 0]
+            sigma = jnp.where(s_from_up, -1.0, 1.0).astype(T.dtype)
+            rc_s = jnp.take_along_axis(rc, s[:, None], axis=1)[:, 0]
+            ub_s = jnp.take_along_axis(ub, s[:, None], axis=1)[:, 0]
+            ub_s_safe = jnp.where(jnp.isfinite(ub_s), ub_s, 0.0)
 
-                d = _gather_col(T, s)[:, :-1]
-                dd = sigma[:, None] * d
-                xB = T[:, :-1, -1]
-                pos = dd > tol
-                neg = (dd < -tol) & jnp.isfinite(ub_B)
-                xB_c = jnp.maximum(xB, 0.0)
-                span_c = jnp.maximum(ub_B - xB, 0.0)
-                t_lo = jnp.where(pos, xB_c / jnp.where(pos, dd, 1.0),
-                                 jnp.inf)
-                t_hi = jnp.where(neg, span_c / jnp.where(neg, -dd, 1.0),
-                                 jnp.inf)
-                t_row = jnp.minimum(t_lo, t_hi)
-                cand = pos | neg
-                min_row = jnp.min(t_row, axis=-1)
-                theta = jnp.minimum(min_row, ub_s)
-                unbounded = (~optimal) & jnp.isinf(theta)
-                flip = (~optimal) & (~unbounded) & (ub_s <= min_row)
-                theta_safe = jnp.where(jnp.isfinite(theta), theta, 0.0)
+            d = _gather_col(T, s)[:, :-1]
+            dd = sigma[:, None] * d
+            xB = T[:, :-1, -1]
+            pos = dd > tol
+            neg = (dd < -tol) & jnp.isfinite(ub_B)
+            xB_c = jnp.maximum(xB, 0.0)
+            span_c = jnp.maximum(ub_B - xB, 0.0)
+            t_lo = jnp.where(pos, xB_c / jnp.where(pos, dd, 1.0),
+                             jnp.inf)
+            t_hi = jnp.where(neg, span_c / jnp.where(neg, -dd, 1.0),
+                             jnp.inf)
+            t_row = jnp.minimum(t_lo, t_hi)
+            cand = pos | neg
+            min_row = jnp.min(t_row, axis=-1)
+            theta = jnp.minimum(min_row, ub_s)
+            unbounded = (~optimal) & jnp.isinf(theta)
+            flip = (~optimal) & (~unbounded) & (ub_s <= min_row)
+            theta_safe = jnp.where(jnp.isfinite(theta), theta, 0.0)
 
-                delta_lo = tol * (1.0 + jnp.abs(xB))
-                delta_hi = tol * (1.0 + jnp.abs(ub_B - xB))
-                t_lo_rel = jnp.where(pos, (xB_c + delta_lo) /
-                                     jnp.where(pos, dd, 1.0), jnp.inf)
-                t_hi_rel = jnp.where(neg, (span_c + delta_hi) /
-                                     jnp.where(neg, -dd, 1.0), jnp.inf)
-                theta_max = jnp.min(jnp.minimum(t_lo_rel, t_hi_rel),
-                                    axis=-1)
-                harris_cand = cand & (t_row <= theta_max[:, None])
-                hval = jnp.where(harris_cand, jnp.abs(dd), -jnp.inf)
-                r_harris = jnp.argmax(hval, axis=-1)
-                eps = jnp.finfo(T.dtype).eps
-                near = cand & (
-                    t_row <= (min_row + 64.0 * eps
-                              * (1.0 + jnp.abs(min_row)))[:, None])
-                tie_key = jnp.where(near, basis, _INT_MAX)
-                r_bland = jnp.argmin(tie_key, axis=-1)
-                r = jnp.where(use_bland, r_bland, r_harris)
-                t_lo_r = jnp.take_along_axis(t_lo, r[:, None],
-                                             axis=1)[:, 0]
-                t_hi_r = jnp.take_along_axis(t_hi, r[:, None],
-                                             axis=1)[:, 0]
-                leave_up = t_hi_r < t_lo_r
+            delta_lo = tol * (1.0 + jnp.abs(xB))
+            delta_hi = tol * (1.0 + jnp.abs(ub_B - xB))
+            t_lo_rel = jnp.where(pos, (xB_c + delta_lo) /
+                                 jnp.where(pos, dd, 1.0), jnp.inf)
+            t_hi_rel = jnp.where(neg, (span_c + delta_hi) /
+                                 jnp.where(neg, -dd, 1.0), jnp.inf)
+            theta_max = jnp.min(jnp.minimum(t_lo_rel, t_hi_rel),
+                                axis=-1)
+            harris_cand = cand & (t_row <= theta_max[:, None])
+            hval = jnp.where(harris_cand, jnp.abs(dd), -jnp.inf)
+            r_harris = jnp.argmax(hval, axis=-1)
+            eps = jnp.finfo(T.dtype).eps
+            near = cand & (
+                t_row <= (min_row + 64.0 * eps
+                          * (1.0 + jnp.abs(min_row)))[:, None])
+            tie_key = jnp.where(near, basis, _INT_MAX)
+            r_bland = jnp.argmin(tie_key, axis=-1)
+            r = jnp.where(use_bland, r_bland, r_harris)
+            t_lo_r = jnp.take_along_axis(t_lo, r[:, None],
+                                         axis=1)[:, 0]
+            t_hi_r = jnp.take_along_axis(t_hi, r[:, None],
+                                         axis=1)[:, 0]
+            leave_up = t_hi_r < t_lo_r
 
-                moving = live & ~optimal & ~unbounded
-                do_pivot = moving & ~flip
-                do_flip = moving & flip
-                if devex:
-                    w = _devex_update_b(w, T, basis, r, s, do_pivot)
+            moving = live & ~optimal & ~unbounded
+            do_pivot = moving & ~flip
+            do_flip = moving & flip
+            if devex:
+                w = _devex_update_b(w, T, basis, r, s, do_pivot)
 
-                z_min_old = -T[:, -1, -1]
-                xB_flip = jnp.clip(xB - dd * ub_s_safe[:, None], 0.0,
-                                   ub_B)
-                z_flip = z_min_old + sigma * rc_s * ub_s_safe
-                s_hot = col_idx == s[:, None]
-                at_upper_flip = jnp.where(s_hot, ~at_upper, at_upper)
+            z_min_old = -T[:, -1, -1]
+            xB_flip = jnp.clip(xB - dd * ub_s_safe[:, None], 0.0,
+                               ub_B)
+            z_flip = z_min_old + sigma * rc_s * ub_s_safe
+            s_hot = col_idx == s[:, None]
+            at_upper_flip = jnp.where(s_hot, ~at_upper, at_upper)
 
-                x_enter = jnp.where(s_from_up, ub_s_safe - theta_safe,
-                                    theta_safe)
-                xB_piv = xB - dd * theta_safe[:, None]
-                row_hot = jax.nn.one_hot(r, T.shape[1] - 1, dtype=bool,
-                                         axis=-1)
-                xB_piv = jnp.where(row_hot, x_enter[:, None], xB_piv)
-                z_piv = z_min_old + sigma * rc_s * theta_safe
-                j_out = jnp.take_along_axis(basis, r[:, None],
-                                            axis=1)[:, 0]
-                T_upd, basis_upd = _pivot_update_b(T, basis, r, s,
-                                                   do_pivot)
-                upd_row = do_pivot[:, None] & row_hot
-                ub_B = jnp.where(upd_row, ub_s[:, None], ub_B)
-                xB_piv = jnp.clip(xB_piv, 0.0, ub_B)
-                rhs_new = jnp.where(
-                    do_pivot[:, None], xB_piv,
-                    jnp.where(do_flip[:, None], xB_flip, xB))
-                T_upd = T_upd.at[:, :-1, -1].set(rhs_new)
-                z_new = jnp.where(do_pivot, z_piv,
-                                  jnp.where(do_flip, z_flip, z_min_old))
-                T_upd = T_upd.at[:, -1, -1].set(-z_new)
-                jout_hot = col_idx == j_out[:, None]
-                at_up_piv = jnp.where(jout_hot, leave_up[:, None],
-                                      at_upper)
-                at_up_piv = jnp.where(s_hot, False, at_up_piv)
-                at_upper = jnp.where(
-                    do_pivot[:, None], at_up_piv,
-                    jnp.where(do_flip[:, None], at_upper_flip, at_upper))
-                T = T_upd
-                basis = basis_upd
+            x_enter = jnp.where(s_from_up, ub_s_safe - theta_safe,
+                                theta_safe)
+            xB_piv = xB - dd * theta_safe[:, None]
+            row_hot = jax.nn.one_hot(r, T.shape[1] - 1, dtype=bool,
+                                     axis=-1)
+            xB_piv = jnp.where(row_hot, x_enter[:, None], xB_piv)
+            z_piv = z_min_old + sigma * rc_s * theta_safe
+            j_out = jnp.take_along_axis(basis, r[:, None],
+                                        axis=1)[:, 0]
+            T_upd, basis_upd = _pivot_update_b(T, basis, r, s,
+                                               do_pivot)
+            upd_row = do_pivot[:, None] & row_hot
+            ub_B = jnp.where(upd_row, ub_s[:, None], ub_B)
+            xB_piv = jnp.clip(xB_piv, 0.0, ub_B)
+            rhs_new = jnp.where(
+                do_pivot[:, None], xB_piv,
+                jnp.where(do_flip[:, None], xB_flip, xB))
+            T_upd = T_upd.at[:, :-1, -1].set(rhs_new)
+            z_new = jnp.where(do_pivot, z_piv,
+                              jnp.where(do_flip, z_flip, z_min_old))
+            T_upd = T_upd.at[:, -1, -1].set(-z_new)
+            jout_hot = col_idx == j_out[:, None]
+            at_up_piv = jnp.where(jout_hot, leave_up[:, None],
+                                  at_upper)
+            at_up_piv = jnp.where(s_hot, False, at_up_piv)
+            at_upper = jnp.where(
+                do_pivot[:, None], at_up_piv,
+                jnp.where(do_flip[:, None], at_upper_flip, at_upper))
+            T = T_upd
+            basis = basis_upd
 
             want_stop = (optimal | unbounded) & live
             status = jnp.where(
@@ -907,91 +810,78 @@ def solve_tableau_batch_bounded(T0, basis0, col_mask_p1, col_mask_p2,
             T,
         )
 
-        if use_pallas:
-            # Fused bounded select+pivot+flip: instances coming back
-            # optimal/unbounded (or not RUNNING) pass through untouched,
-            # so the phase-flip logic below still sees their pre-pivot
-            # tableaus.  ub_B/is_art_row/at_upper/w updates for moving
-            # instances happen inside the kernel.
-            (T, basis, at_upper, w, ub_B, is_art_row, s, r, optimal,
-             unbounded, _did) = pallas_batched.fused_pivot_step_bounded(
-                T, basis, at_upper, cm1f, cm2f, phase, status,
-                use_bland.astype(jnp.int32), w, ub_k, ub_B, is_art_row,
-                art_f, tol=tol, devex=devex,
-                interpret=(backend == "pallas_interpret"))
+        # ---- pricing: dual-infeasibility over BOTH bounds --------- #
+        rc = T[:, -1, :-1]
+        elig_lo = col_mask & ~at_upper & (rc < -tol)
+        elig_up = col_mask & at_upper & (rc > tol)
+        eligible = elig_lo | elig_up
+        viol = jnp.where(eligible, jnp.abs(rc), -jnp.inf)
+        if devex:
+            score = jnp.where(eligible, (viol * viol) / w, -jnp.inf)
+            s_price = jnp.argmax(score, axis=-1)
         else:
-            # ---- pricing: dual-infeasibility over BOTH bounds --------- #
-            rc = T[:, -1, :-1]
-            elig_lo = col_mask & ~at_upper & (rc < -tol)
-            elig_up = col_mask & at_upper & (rc > tol)
-            eligible = elig_lo | elig_up
-            viol = jnp.where(eligible, jnp.abs(rc), -jnp.inf)
-            if devex:
-                score = jnp.where(eligible, (viol * viol) / w, -jnp.inf)
-                s_price = jnp.argmax(score, axis=-1)
-            else:
-                s_price = jnp.argmax(viol, axis=-1)
-            s_bland = jnp.argmax(eligible, axis=-1)
-            s = jnp.where(use_bland, s_bland, s_price)
-            optimal = ~jnp.any(eligible, axis=-1)
+            s_price = jnp.argmax(viol, axis=-1)
+        s_bland = jnp.argmax(eligible, axis=-1)
+        s = jnp.where(use_bland, s_bland, s_price)
+        optimal = ~jnp.any(eligible, axis=-1)
 
-            s_from_up = jnp.take_along_axis(
-                at_upper, s[:, None], axis=1)[:, 0]
-            sigma = jnp.where(s_from_up, -1.0, 1.0).astype(T.dtype)  # (B,)
-            rc_s = jnp.take_along_axis(rc, s[:, None], axis=1)[:, 0]
-            ub_s = jnp.take_along_axis(ub, s[:, None], axis=1)[:, 0]
-            ub_s_safe = jnp.where(jnp.isfinite(ub_s), ub_s, 0.0)
+        s_from_up = jnp.take_along_axis(
+            at_upper, s[:, None], axis=1)[:, 0]
+        sigma = jnp.where(s_from_up, -1.0, 1.0).astype(T.dtype)  # (B,)
+        rc_s = jnp.take_along_axis(rc, s[:, None], axis=1)[:, 0]
+        ub_s = jnp.take_along_axis(ub, s[:, None], axis=1)[:, 0]
+        ub_s_safe = jnp.where(jnp.isfinite(ub_s), ub_s, 0.0)
 
-            # ---- bounded ratio test ----------------------------------- #
-            d = _gather_col(T, s)[:, :-1]                         # (B, m)
-            dd = sigma[:, None] * d
-            xB = T[:, :-1, -1]
-            # ub_B / is_art_row are CARRIED state (updated at the pivot
-            # row, refreshed on phase flips): the per-iteration lane-axis
-            # take_along_axis gathers they replace were a visible slice of
-            # the bounded kernel's 2x cost over the classic one (round 4).
-            pos = dd > tol
-            neg = (dd < -tol) & jnp.isfinite(ub_B)
-            art_exit = (~in_p1)[:, None] & is_art_row & (jnp.abs(dd) > tol)
-            # Backward-step clamps on BOTH limits (see ops/tableau).
-            xB_c = jnp.maximum(xB, 0.0)
-            span_c = jnp.maximum(ub_B - xB, 0.0)
-            t_lo = jnp.where(pos, xB_c / jnp.where(pos, dd, 1.0), jnp.inf)
-            t_lo = jnp.where(art_exit, 0.0, t_lo)
-            t_hi = jnp.where(neg, span_c / jnp.where(neg, -dd, 1.0),
-                             jnp.inf)
-            t_row = jnp.minimum(t_lo, t_hi)
-            cand = pos | neg | art_exit
-            min_row = jnp.min(t_row, axis=-1)
-            theta = jnp.minimum(min_row, ub_s)
-            unbounded = (~optimal) & jnp.isinf(theta)
-            flip = (~optimal) & (~unbounded) & (ub_s <= min_row)
-            theta_safe = jnp.where(jnp.isfinite(theta), theta, 0.0)
+        # ---- bounded ratio test ----------------------------------- #
+        d = _gather_col(T, s)[:, :-1]                         # (B, m)
+        dd = sigma[:, None] * d
+        xB = T[:, :-1, -1]
+        # ub_B / is_art_row are CARRIED state (updated at the pivot
+        # row, refreshed on phase flips): the per-iteration lane-axis
+        # take_along_axis gathers they replace were a visible slice of
+        # the bounded kernel's 2x cost over the classic one (round 4).
+        pos = dd > tol
+        neg = (dd < -tol) & jnp.isfinite(ub_B)
+        art_exit = (~in_p1)[:, None] & is_art_row & (jnp.abs(dd) > tol)
+        # Backward-step clamps on BOTH limits (see ops/tableau).
+        xB_c = jnp.maximum(xB, 0.0)
+        span_c = jnp.maximum(ub_B - xB, 0.0)
+        t_lo = jnp.where(pos, xB_c / jnp.where(pos, dd, 1.0), jnp.inf)
+        t_lo = jnp.where(art_exit, 0.0, t_lo)
+        t_hi = jnp.where(neg, span_c / jnp.where(neg, -dd, 1.0),
+                         jnp.inf)
+        t_row = jnp.minimum(t_lo, t_hi)
+        cand = pos | neg | art_exit
+        min_row = jnp.min(t_row, axis=-1)
+        theta = jnp.minimum(min_row, ub_s)
+        unbounded = (~optimal) & jnp.isinf(theta)
+        flip = (~optimal) & (~unbounded) & (ub_s <= min_row)
+        theta_safe = jnp.where(jnp.isfinite(theta), theta, 0.0)
 
-            # Harris two-pass over BOTH limits: relax each by the
-            # feasibility tolerance, largest |pivot| inside the window.
-            delta_lo = tol * (1.0 + jnp.abs(xB))
-            delta_hi = tol * (1.0 + jnp.abs(ub_B - xB))
-            t_lo_rel = jnp.where(pos, (xB_c + delta_lo) /
-                                 jnp.where(pos, dd, 1.0), jnp.inf)
-            t_hi_rel = jnp.where(neg, (span_c + delta_hi) /
-                                 jnp.where(neg, -dd, 1.0), jnp.inf)
-            theta_max = jnp.min(jnp.minimum(t_lo_rel, t_hi_rel), axis=-1)
-            harris_cand = (cand & (t_row <= theta_max[:, None])) | art_exit
-            hval = jnp.where(harris_cand,
-                             jnp.abs(dd) + jnp.where(art_exit, _ART, 0.0),
-                             -jnp.inf)
-            r_harris = jnp.argmax(hval, axis=-1)
-            eps = jnp.finfo(T.dtype).eps
-            near = cand & (
-                t_row <= (min_row + 64.0 * eps
-                          * (1.0 + jnp.abs(min_row)))[:, None])
-            tie_key = jnp.where(near, basis, _INT_MAX)
-            r_bland = jnp.argmin(tie_key, axis=-1)
-            r = jnp.where(use_bland, r_bland, r_harris)
-            t_lo_r = jnp.take_along_axis(t_lo, r[:, None], axis=1)[:, 0]
-            t_hi_r = jnp.take_along_axis(t_hi, r[:, None], axis=1)[:, 0]
-            leave_up = t_hi_r < t_lo_r
+        # Harris two-pass over BOTH limits: relax each by the
+        # feasibility tolerance, largest |pivot| inside the window.
+        delta_lo = tol * (1.0 + jnp.abs(xB))
+        delta_hi = tol * (1.0 + jnp.abs(ub_B - xB))
+        t_lo_rel = jnp.where(pos, (xB_c + delta_lo) /
+                             jnp.where(pos, dd, 1.0), jnp.inf)
+        t_hi_rel = jnp.where(neg, (span_c + delta_hi) /
+                             jnp.where(neg, -dd, 1.0), jnp.inf)
+        theta_max = jnp.min(jnp.minimum(t_lo_rel, t_hi_rel), axis=-1)
+        harris_cand = (cand & (t_row <= theta_max[:, None])) | art_exit
+        hval = jnp.where(harris_cand,
+                         jnp.abs(dd) + jnp.where(art_exit, _ART, 0.0),
+                         -jnp.inf)
+        r_harris = jnp.argmax(hval, axis=-1)
+        eps = jnp.finfo(T.dtype).eps
+        near = cand & (
+            t_row <= (min_row + 64.0 * eps
+                      * (1.0 + jnp.abs(min_row)))[:, None])
+        tie_key = jnp.where(near, basis, _INT_MAX)
+        r_bland = jnp.argmin(tie_key, axis=-1)
+        r = jnp.where(use_bland, r_bland, r_harris)
+        t_lo_r = jnp.take_along_axis(t_lo, r[:, None], axis=1)[:, 0]
+        t_hi_r = jnp.take_along_axis(t_hi, r[:, None], axis=1)[:, 0]
+        leave_up = t_hi_r < t_lo_r
 
         want_stop = (optimal | unbounded) & live
 
@@ -1039,62 +929,61 @@ def solve_tableau_batch_bounded(T0, basis0, col_mask_p1, col_mask_p2,
         )
 
         moving = (status == RUNNING) & ~to_p2 & live & ~optimal & ~unbounded
-        if not use_pallas:
-            do_pivot = moving & ~flip
-            do_flip = moving & flip
+        do_pivot = moving & ~flip
+        do_flip = moving & flip
 
-            if devex:
-                w = _devex_update_b(w, T, basis, r, s, do_pivot)
+        if devex:
+            w = _devex_update_b(w, T, basis, r, s, do_pivot)
 
-            # --- BOUND FLIP: no basis change, O(m) state update --------- #
-            z_min_old = -T[:, -1, -1]
-            xB_flip = jnp.clip(xB - dd * ub_s_safe[:, None], 0.0, ub_B)
-            z_flip = z_min_old + sigma * rc_s * ub_s_safe
-            s_hot = col_idx == s[:, None]                      # (B, n)
-            at_upper_flip = jnp.where(s_hot, ~at_upper, at_upper)
+        # --- BOUND FLIP: no basis change, O(m) state update --------- #
+        z_min_old = -T[:, -1, -1]
+        xB_flip = jnp.clip(xB - dd * ub_s_safe[:, None], 0.0, ub_B)
+        z_flip = z_min_old + sigma * rc_s * ub_s_safe
+        s_hot = col_idx == s[:, None]                      # (B, n)
+        at_upper_flip = jnp.where(s_hot, ~at_upper, at_upper)
 
-            # --- PIVOT: rank-1 on B^{-1}A + rc; explicit RHS/objective -- #
-            x_enter = jnp.where(s_from_up, ub_s_safe - theta_safe,
-                                theta_safe)
-            xB_piv = xB - dd * theta_safe[:, None]
-            row_hot = jax.nn.one_hot(r, T.shape[1] - 1, dtype=bool, axis=-1)
-            xB_piv = jnp.where(row_hot, x_enter[:, None], xB_piv)
-            z_piv = z_min_old + sigma * rc_s * theta_safe
-            j_out = jnp.take_along_axis(basis, r[:, None], axis=1)[:, 0]
-            T_upd, basis_upd = _pivot_update_b(T, basis, r, s, do_pivot)
-            # Overwrite the RHS column / objective cell with the bounded-
-            # semantics values (the rank-1 RHS formula assumes
-            # leave-at-zero).
-            is_art_s = jnp.take_along_axis(
-                art_mask_ext, s[:, None], axis=1)[:, 0]
-            upd_row = do_pivot[:, None] & row_hot
-            ub_B_new = jnp.where(upd_row, ub_s[:, None], ub_B)
-            is_art_row = jnp.where(upd_row, is_art_s[:, None], is_art_row)
-            ub_B = ub_B_new
-            xB_piv = jnp.clip(xB_piv, 0.0, ub_B_new)
-            # Fallback = the CURRENT (possibly phase-flipped) state, not
-            # the pre-flip xB/z snapshot — do_pivot/do_flip are disjoint
-            # from to_p2, so the moving instances' snapshots are still
-            # current.
-            cur_rhs = T[:, :-1, -1]
-            cur_z = -T[:, -1, -1]
-            rhs_new = jnp.where(
-                do_pivot[:, None], xB_piv,
-                jnp.where(do_flip[:, None], xB_flip, cur_rhs))
-            T_upd = T_upd.at[:, :-1, -1].set(rhs_new)
-            z_new = jnp.where(do_pivot, z_piv,
-                              jnp.where(do_flip, z_flip, cur_z))
-            T_upd = T_upd.at[:, -1, -1].set(-z_new)
-            # at-upper bookkeeping: leaving variable exits at its bound;
-            # entering/flipping column toggles.
-            jout_hot = col_idx == j_out[:, None]
-            at_up_piv = jnp.where(jout_hot, leave_up[:, None], at_upper)
-            at_up_piv = jnp.where(s_hot, False, at_up_piv)
-            at_upper = jnp.where(do_pivot[:, None], at_up_piv,
-                                 jnp.where(do_flip[:, None], at_upper_flip,
-                                           at_upper))
-            T = T_upd
-            basis = basis_upd
+        # --- PIVOT: rank-1 on B^{-1}A + rc; explicit RHS/objective -- #
+        x_enter = jnp.where(s_from_up, ub_s_safe - theta_safe,
+                            theta_safe)
+        xB_piv = xB - dd * theta_safe[:, None]
+        row_hot = jax.nn.one_hot(r, T.shape[1] - 1, dtype=bool, axis=-1)
+        xB_piv = jnp.where(row_hot, x_enter[:, None], xB_piv)
+        z_piv = z_min_old + sigma * rc_s * theta_safe
+        j_out = jnp.take_along_axis(basis, r[:, None], axis=1)[:, 0]
+        T_upd, basis_upd = _pivot_update_b(T, basis, r, s, do_pivot)
+        # Overwrite the RHS column / objective cell with the bounded-
+        # semantics values (the rank-1 RHS formula assumes
+        # leave-at-zero).
+        is_art_s = jnp.take_along_axis(
+            art_mask_ext, s[:, None], axis=1)[:, 0]
+        upd_row = do_pivot[:, None] & row_hot
+        ub_B_new = jnp.where(upd_row, ub_s[:, None], ub_B)
+        is_art_row = jnp.where(upd_row, is_art_s[:, None], is_art_row)
+        ub_B = ub_B_new
+        xB_piv = jnp.clip(xB_piv, 0.0, ub_B_new)
+        # Fallback = the CURRENT (possibly phase-flipped) state, not
+        # the pre-flip xB/z snapshot — do_pivot/do_flip are disjoint
+        # from to_p2, so the moving instances' snapshots are still
+        # current.
+        cur_rhs = T[:, :-1, -1]
+        cur_z = -T[:, -1, -1]
+        rhs_new = jnp.where(
+            do_pivot[:, None], xB_piv,
+            jnp.where(do_flip[:, None], xB_flip, cur_rhs))
+        T_upd = T_upd.at[:, :-1, -1].set(rhs_new)
+        z_new = jnp.where(do_pivot, z_piv,
+                          jnp.where(do_flip, z_flip, cur_z))
+        T_upd = T_upd.at[:, -1, -1].set(-z_new)
+        # at-upper bookkeeping: leaving variable exits at its bound;
+        # entering/flipping column toggles.
+        jout_hot = col_idx == j_out[:, None]
+        at_up_piv = jnp.where(jout_hot, leave_up[:, None], at_upper)
+        at_up_piv = jnp.where(s_hot, False, at_up_piv)
+        at_upper = jnp.where(do_pivot[:, None], at_up_piv,
+                             jnp.where(do_flip[:, None], at_upper_flip,
+                                       at_upper))
+        T = T_upd
+        basis = basis_upd
         pivots = pivots + moving.astype(pivots.dtype)
 
         # Objective-progress tracking (min-form objective non-increasing).

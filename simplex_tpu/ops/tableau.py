@@ -1,6 +1,6 @@
 """Dense tableau-simplex kernels (single-chip, jitted, static shapes).
 
-This module is the TPU-native replacement for both of the reference's solve
+This module is the device replacement for both of the reference's solve
 engines: scipy/HiGHS's C++ dual simplex (``solver_controller.py:78-85``) and
 the pure-Python ``simple_simplex`` tableau loop (``:290-319``).  Everything is
 expressed as masked, fixed-shape JAX so it compiles once per shape bucket and
@@ -10,13 +10,16 @@ runs entirely on device:
   with a Bland's-rule fallback after ``bland_after`` iterations (anti-cycling);
 * ratio test       = masked argmin with basis-index tie-breaking;
 * pivot update     = rank-1 row-reduction over the whole tableau
-  (the HBM-bound hot op — see ``ops/pallas_pivot.py`` for the fused kernel);
+  (the memory-bound hot op);
 * two phases       = phase 1 minimizes artificial infeasibility, phase 2 the
   real objective with artificial columns masked out.
 
 Tableau convention (min form): ``T[:-1]`` are constraint rows with RHS in the
 last column; ``T[-1]`` holds reduced costs with ``T[-1, -1] == -z``.
 Optimality: all masked reduced costs ≥ -tol.
+
+Every contraction states ``precision=HIGHEST``: a float32 product may run in
+TF32 on the GPU (about 10 mantissa bits).
 """
 from __future__ import annotations
 
@@ -36,6 +39,11 @@ from ..core.problem import (
 RUNNING = -1  # internal sentinel while the pivot loop is active
 
 _INT_MAX = jnp.iinfo(jnp.int32).max
+_HI = lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HI)
 
 
 def select_pivot(T, basis, col_mask, tol, use_bland, weights=None):
@@ -110,13 +118,12 @@ def select_pivot(T, basis, col_mask, tol, use_bland, weights=None):
 def pivot_update(T, basis, r, s, clamp_rhs: bool = False):
     """Rank-1 row-reduction pivot: eliminate column ``s`` against row ``r``.
 
-    This is the per-iteration O(m·n) HBM-bound operation that BASELINE.json
-    targets at ≥80% of roofline.  Formulated as ONE fused elementwise pass
-    (rank-1 update + pivot-row override + unit-column override all via
-    broadcasted ``where`` masks) so XLA emits a single read+write stream over
-    the tableau — measured at ~99% of the chip's achievable streaming
-    bandwidth on v5e, vs ~53% for the scatter (``.at[].set``) formulation,
-    whose dynamic-update-slices compile into extra full-array passes.
+    This is the per-iteration O(m·n) memory-bound operation that
+    BASELINE.json targets at ≥80% of roofline.  Formulated as ONE fused
+    elementwise pass (rank-1 update + pivot-row override + unit-column
+    override all via broadcasted ``where`` masks) so XLA emits a single
+    read+write stream over the tableau, instead of the extra full-array
+    passes a scatter (``.at[].set``) formulation compiles into.
     """
     M, N = T.shape
     pivot = T[r, s]
@@ -146,7 +153,7 @@ def refactor_tableau(T0_rows, basis, raw_obj):
     """Recompute the tableau exactly from the original data and current basis.
 
     ``T_rows = B⁻¹ · T0_rows`` with ``B = T0_rows[:, basis]`` (dense LU solve
-    on device — MXU work), then re-price the raw objective row.  This bounds
+    on device), then re-price the raw objective row.  This bounds
     float32 round-off drift over long pivot sequences — the same role
     basis refactorization plays in production simplex codes (cf. PAPERS.md
     revised-simplex references).  Falls back to the old tableau if the basis
@@ -154,47 +161,9 @@ def refactor_tableau(T0_rows, basis, raw_obj):
     """
     B = jnp.take(T0_rows, basis, axis=1)
     T_rows = jnp.linalg.solve(B, T0_rows)
-    obj = raw_obj - raw_obj[basis] @ T_rows
+    obj = raw_obj - _mm(raw_obj[basis], T_rows)
     T_new = jnp.concatenate([T_rows, obj[None, :]], axis=0)
     return T_new
-
-
-def newton_resync(T, basis, basis0, T0_rows, raw_obj):
-    """LU-free drift control: Newton-refine the RHS + exact reprice.
-
-    XLA's on-device LU (``refactor_tableau``) needs scoped VMEM that the
-    runtime caps at 16 MB — the LuDecompositionBlock overflows it around
-    m ≈ 11k, exactly the BASELINE 10k×10k regime.  This variant controls
-    drift on the two quantities that decide pivots and verdicts (the
-    sharded kernel's scheme, ``parallel/sharded.py``):
-
-    * ``x_B`` gets one Newton step against the ORIGINAL data using the
-      approximate inverse already embedded in the tableau
-      (``T_rows[:, basis0] ≈ B⁻¹`` — basis0 indexes the identity columns
-      of T0), kept only when it reduces the residual;
-    * the objective row is re-priced exactly against the current rows.
-
-    Everything is O(m·N) matvecs — no LU, no m×m temporary: the
-    basis-column contractions become scatters into an N-vector followed
-    by plain matvecs.  Row drift itself stays bounded only by the Harris
-    ratio test + the host f64 certification/escalation net.
-    """
-    T_rows = T[:-1]
-    N1 = T_rows.shape[1]
-    b0 = T0_rows[:, -1]
-    xB = T_rows[:, -1]
-    xfull = jnp.zeros((N1,), T.dtype).at[basis].set(xB)
-    r0 = b0 - T0_rows @ xfull
-    rfull = jnp.zeros((N1,), T.dtype).at[basis0].set(r0)
-    xB1 = xB + T_rows @ rfull
-    xfull1 = jnp.zeros((N1,), T.dtype).at[basis].set(xB1)
-    r1 = b0 - T0_rows @ xfull1
-    better = (jnp.sum(r1 * r1) < jnp.sum(r0 * r0)) & \
-        jnp.all(jnp.isfinite(xB1))
-    xB_out = jnp.where(better, xB1, xB)
-    T = T.at[:-1, -1].set(xB_out)
-    obj = raw_obj - raw_obj[basis] @ T[:-1]
-    return T.at[-1].set(obj)
 
 
 def _devex_update(w, T, basis, r, s):
@@ -218,8 +187,7 @@ def _devex_update(w, T, basis, r, s):
 
 def _run_phase(T, basis, col_mask, T0_rows, raw_obj,
                tol, max_iters, bland_after, refactor_every, iters0,
-               devex: bool = False, basis0=None,
-               use_newton: bool = False):
+               devex: bool = False):
     """Pivot until optimal/unbounded/iteration-cap via ``lax.while_loop``.
 
     Numerics: the tableau is refactorized from the original data every
@@ -273,10 +241,7 @@ def _run_phase(T, basis, col_mask, T0_rows, raw_obj,
 
         def do_refactor(args):
             T, basis, _, w = args
-            if use_newton:
-                T_new = newton_resync(T, basis, basis0, T0_rows, raw_obj)
-            else:
-                T_new = refactor_tableau(T0_rows, basis, raw_obj)
+            T_new = refactor_tableau(T0_rows, basis, raw_obj)
             ok = jnp.all(jnp.isfinite(T_new))
             T = jnp.where(ok, T_new, T)
             return T, basis, jnp.int32(0), w
@@ -320,12 +285,12 @@ def _run_phase(T, basis, col_mask, T0_rows, raw_obj,
 def _price_out(T, basis, obj_row):
     """Install ``obj_row`` as the objective and price out the current basis.
 
-    obj2 = obj_row - costs[basis] @ T_rows — a vec×mat contraction (MXU work).
+    obj2 = obj_row - costs[basis] @ T_rows — a vec×mat contraction.
     """
     # ``basis`` may point at the RHS slot (dummy padding rows); that entry of
     # ``obj_row`` is zero, so the gather is safe without masking.
     basis_costs = obj_row[basis]
-    obj2 = obj_row - basis_costs @ T[:-1]
+    obj2 = obj_row - _mm(basis_costs, T[:-1])
     return T.at[-1].set(obj2)
 
 
@@ -362,19 +327,18 @@ def _evict_artificials(T, basis, art_mask_ext, col_mask_p2, tol):
 @functools.partial(
     jax.jit,
     static_argnames=("need_phase1", "tol", "max_iters", "bland_after",
-                     "feas_tol", "refactor_every", "devex", "newton_drift"),
+                     "feas_tol", "refactor_every", "devex"),
 )
 def solve_tableau(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
                   need_phase1: bool, tol: float = 1e-6,
                   max_iters: int = 16384, bland_after: int = 2048,
                   feas_tol: float = 1e-5, refactor_every: int = 64,
-                  devex: bool = False, newton_drift: bool = False):
+                  devex: bool = False):
     """Full two-phase dense simplex solve on one padded tableau.
 
-    ``newton_drift`` switches drift control from the exact on-device LU
-    refactorization to the LU-free Newton-RHS + exact-reprice resync
-    (see :func:`newton_resync`) — required above m ≈ 11k where XLA's LU
-    block overflows the runtime's 16 MB scoped-VMEM cap.
+    Drift control is the exact on-device LU refactorization
+    (:func:`refactor_tableau`) every ``refactor_every`` pivots and before
+    any terminal verdict is accepted.
 
     Returns ``(T, basis, status, iters)`` with scipy-compatible status codes
     (0 optimal, 1 iteration limit, 2 infeasible, 3 unbounded).
@@ -387,7 +351,7 @@ def solve_tableau(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
         T, basis, iters, status = _run_phase(
             T0, basis0, col_mask_p1, T0_rows, obj_row_p1,
             tol, max_iters, bland_after, refactor_every, iters0,
-            devex=devex, basis0=basis0, use_newton=newton_drift,
+            devex=devex,
         )
         phase1_obj = -T[-1, -1]
         infeasible = phase1_obj > feas_tol * b_scale
@@ -408,7 +372,7 @@ def solve_tableau(T0, basis0, col_mask_p1, col_mask_p2, obj_row_p1, obj_row_p2,
     T2, basis2, iters2, status2 = _run_phase(
         T, basis, col_mask_p2, T0_rows, obj_row_p2,
         tol, max_iters, bland_after, refactor_every, iters,
-        devex=devex, basis0=basis0, use_newton=newton_drift,
+        devex=devex,
     )
 
     final_status = jnp.where(
@@ -440,7 +404,7 @@ def solve_tableau_dual(T0, basis0, col_mask, tol: float = 1e-6,
                        refactor_every: int = 64, devex: bool = True):
     """Dual simplex pivots on a tableau with nonnegative reduced costs.
 
-    The mirror image of the primal loop — the TPU-native counterpart of the
+    The mirror image of the primal loop — the device counterpart of the
     reference's authoritative engine, HiGHS *dual* simplex
     (``solver_controller.py:83`` ``method='highs-ds'``).  Start state: a
     basis that is dual-feasible (``T[-1, :-1] >= -tol`` on eligible
@@ -593,10 +557,8 @@ def solve_tableau_dual(T0, basis0, col_mask, tol: float = 1e-6,
 
 
 def _gather_col_single(T, s):
-    """Column ``T[:, s]`` as a one-hot contraction (lane-axis gather is a
-    slow multi-pass op on TPU; the einsum reads T once on the MXU)."""
-    hot = jax.nn.one_hot(s, T.shape[1], dtype=T.dtype)
-    return T @ hot
+    """Column ``T[:, s]`` (an exact index gather)."""
+    return lax.dynamic_slice_in_dim(T, s, 1, axis=1)[:, 0]
 
 
 @functools.partial(
@@ -650,7 +612,7 @@ def solve_tableau_dual_bounded(T0, basis0, col_mask, ub, at_upper0,
     def _refactor_bounded(basis, at_upper):
         T_new = refactor_tableau(T0_rows, basis, raw_obj)
         u_vec = jnp.where(at_upper, ub_safe, 0.0)
-        adj = T_new[:, :n_cols] @ u_vec
+        adj = _mm(T_new[:, :n_cols], u_vec)
         return T_new.at[:, -1].add(-adj)
 
     # Effective starting tableau: T0's rows under basis0, RHS adjusted for

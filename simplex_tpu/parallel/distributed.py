@@ -3,20 +3,22 @@
 The reference is strictly single-process (SURVEY.md §2.4: gunicorn workers
 are share-nothing request concurrency, ``dockerfile:34``).  This module is
 the BASELINE north-star path the reference never had: one LP's constraint
-rows block-sharded across the chips of SEVERAL hosts (config 5: "100k-
-constraint LP row-block sharded across a v5p-16"), with the per-pivot
-pmin/psum collectives of ``parallel/sharded.py`` riding ICI within a slice
-and DCN across hosts.
+rows block-sharded across the GPUs of SEVERAL hosts (config 5: a
+100k-constraint LP row-block sharded across devices), with the per-pivot
+pmin/psum collectives of ``parallel/sharded.py`` riding NVLink between the
+cards of one host and the network between hosts.
 
-Design (scaling-book recipe):
+Design:
 
-* mesh axes       — ``("batch", "row")``.  ``row`` carries the per-pivot
-  collectives (two scalar reductions + one pivot-row psum per iteration),
-  so by default it is laid out WITHIN a process (ICI on a TPU slice) and
-  ``batch`` — which needs no collectives at all — spans processes (DCN).
+* mesh axes       — ``("batch", "row")``.  The mesh follows the algorithm
+  only: ``row`` carries the per-pivot collectives (two scalar reductions +
+  one pivot-row psum per iteration), so by default it is laid out WITHIN a
+  process, whose cards are joined all to all by NVLink, and ``batch`` —
+  which needs no collectives at all — spans processes (the network).
   Asking for ``row`` larger than one process's device count deliberately
-  spills the row axis onto DCN: the 100k-row regime where one host cannot
-  hold the tableau, per-pivot latency then pays one DCN round-trip.
+  spills the row axis onto the network: the 100k-row regime where one host
+  cannot hold the tableau, per-pivot latency then pays one network
+  round-trip.
 * array creation  — every process materializes ONLY its addressable shards
   (``jax.make_array_from_callback``); nothing assembles the global tableau
   in one host's memory.
@@ -26,8 +28,8 @@ Design (scaling-book recipe):
 Runtime bring-up: call :func:`initialize` once per process before any JAX
 computation (the standard ``jax.distributed.initialize`` contract), driven
 by flags or ``SIMPLEX_TPU_COORDINATOR`` / ``SIMPLEX_TPU_NUM_PROCESSES`` /
-``SIMPLEX_TPU_PROCESS_ID`` env vars.  On Cloud TPU pods the arguments are
-auto-detected and may be omitted.  Verified end-to-end by
+``SIMPLEX_TPU_PROCESS_ID`` env vars (``jax.distributed.initialize`` needs
+all three where no cluster manager announces them).  Verified end-to-end by
 ``tests/test_distributed.py``, which runs 2 OS processes × 2 CPU devices on
 localhost and checks that the row-axis collectives cross the process
 boundary (Gloo) with scipy-parity results.
@@ -90,7 +92,7 @@ def make_global_mesh(row: Optional[int] = None, batch: int = 1,
 
     * ``row <= local_device_count`` (default: exactly one process's
       devices) keeps each row group inside one process — the per-pivot
-      collectives stay on ICI and ``batch`` spans DCN;
+      collectives stay on NVLink and ``batch`` spans the network;
     * ``row > local_device_count`` spans the row axis across processes
       (contiguous process blocks), for single LPs too large for one host.
     """

@@ -2,8 +2,8 @@
 
 BASELINE config 5 ("100k-constraint LP row-block sharded across a multi-host
 pod with all-reduce pricing + ratio-test collectives").  The reference has no
-distributed execution at all (SURVEY.md §2.4); this is the TPU-native scale
-path: constraint rows of the tableau live block-partitioned across the
+distributed execution at all (SURVEY.md §2.4); this is the multi-device
+scale path: constraint rows of the tableau live block-partitioned across the
 ``row`` mesh axis, independent LP instances across the ``batch`` axis.
 
 Communication pattern per pivot (SURVEY.md §5.7):
@@ -15,9 +15,9 @@ Communication pattern per pivot (SURVEY.md §5.7):
                         (a broadcast expressed as a masked all-reduce);
   * rank-1 update     — embarrassingly row-parallel, no communication.
 
-So each iteration moves O(n_pad) floats over ICI (one row + two scalars),
-while the O(m_loc * n_pad) update runs at local HBM bandwidth — the design
-the scaling-book recipe prescribes for this reduction structure.
+So each iteration moves O(n_pad) floats between devices (one row + two
+scalars; NVLink collectives within a host), while the O(m_loc * n_pad)
+update runs at local device-memory bandwidth.
 
 Numerics match the single-chip kernels (``ops/tableau.py`` /
 ``ops/batched.py``):
@@ -70,6 +70,9 @@ from ..core.problem import (
 
 RUNNING = -1
 _INT_MAX = jnp.iinfo(jnp.int32).max
+# Every device contraction states its precision: a float32 product may run
+# in TF32 on the GPU (about 10 mantissa bits).
+_einsum = functools.partial(jnp.einsum, precision=lax.Precision.HIGHEST)
 _ART_BONUS = 1 << 20  # tie-break bonus: artificial-basic rows leave first
 
 
@@ -158,24 +161,24 @@ def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,
         Returns the refined RHS column (B, m_loc) — NOT a new tableau:
         returning the full T from inside the periodic ``lax.cond`` forced
         XLA's buffer unification to COPY the whole tableau every
-        iteration (~1.8x per-pivot cost at 10240^2 on v5e, found in the
-        round-4 real-chip bench); the caller writes the column back with
+        iteration (~1.8x per-pivot cost at 10240^2 in an earlier on-chip
+        bench); the caller writes the column back with
         one in-place dynamic-update-slice instead.
         """
         xB_loc = T_cur[:, :, -1]
         if u_vec is not None:
             # Bounded: the residual target is b_eff = b0 - A u_U (the
             # at-upper nonbasic columns sit AT their bound).
-            b_eff = b0_loc - jnp.einsum("bmn,bn->bm", T0_loc, u_vec)
+            b_eff = b0_loc - _einsum("bmn,bn->bm", T0_loc, u_vec)
         else:
             b_eff = b0_loc
         basis_full = _gather_rows(basis_cur)
         xfull = _scatter_cols(basis_full, _gather_rows(xB_loc))
-        r0_loc = b_eff - jnp.einsum("bmn,bn->bm", T0_loc, xfull)
+        r0_loc = b_eff - _einsum("bmn,bn->bm", T0_loc, xfull)
         rfull = _scatter_cols(basis0_full, _gather_rows(r0_loc))
-        xB1_loc = xB_loc + jnp.einsum("bmn,bn->bm", T_cur, rfull)
+        xB1_loc = xB_loc + _einsum("bmn,bn->bm", T_cur, rfull)
         xfull1 = _scatter_cols(basis_full, _gather_rows(xB1_loc))
-        r1_loc = b_eff - jnp.einsum("bmn,bn->bm", T0_loc, xfull1)
+        r1_loc = b_eff - _einsum("bmn,bn->bm", T0_loc, xfull1)
         ss0 = lax.psum(jnp.sum(r0_loc * r0_loc, axis=1), axis)
         ss1 = lax.psum(jnp.sum(r1_loc * r1_loc, axis=1), axis)
         finite = lax.pmin(
@@ -188,7 +191,7 @@ def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,
         """Exact reduced costs for the current rows: raw - c_B' T_rows."""
         cB = jnp.take_along_axis(raw_obj, basis_cur, axis=1)
         cB = jnp.where(row_valid_loc, cB, 0.0)
-        local_dot = jnp.einsum("bm,bmn->bn", cB, T_cur)
+        local_dot = _einsum("bm,bmn->bn", cB, T_cur)
         return raw_obj - lax.psum(local_dot, axis)
 
     def cond(state):
@@ -265,17 +268,10 @@ def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,
         optimal = ~jnp.any(eligible, axis=-1)
 
         # ---- ratio test (local + pmin collectives) --------------------- #
-        # Column extraction: at B_loc = 1 (one huge sharded LP — the
-        # BASELINE config-5 shape) a traced-index dynamic_slice reads
-        # O(m_loc) bytes; the one-hot MXU contraction, which exists because
-        # per-instance lane indices defeat dynamic_slice at B_loc > 1,
-        # reads the WHOLE tableau (one extra full HBM pass per pivot).
-        s_hot = jax.nn.one_hot(s, N1, dtype=dt)              # (B, N+1)
-        if Bl == 1:
-            col_loc = lax.dynamic_slice(
-                T_loc, (0, 0, s[0]), (1, T_loc.shape[1], 1))[:, :, 0]
-        else:
-            col_loc = jnp.einsum("bmn,bn->bm", T_loc, s_hot)  # (B, m_loc)
+        # Column extraction: an index gather per instance reads O(m_loc)
+        # entries, exactly (no product, so no TF32 rounding).
+        col_loc = jnp.take_along_axis(T_loc, s[:, None, None],
+                                      axis=2)[:, :, 0]        # (B, m_loc)
         rhs_loc = T_loc[:, :, -1]
         is_art_row = jnp.take_along_axis(art_ext, basis_loc, axis=1)
         if bounded:
@@ -284,8 +280,7 @@ def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,
             s_from_up = jnp.take_along_axis(at_upper, s[:, None],
                                             axis=1)[:, 0]
             sigma = jnp.where(s_from_up, -1.0, 1.0).astype(dt)   # (B,)
-            rc_s = jnp.einsum("bn,bn->b", obj[:, :-1],
-                              s_hot[:, :-1])
+            rc_s = jnp.take_along_axis(obj, s[:, None], axis=1)[:, 0]
             ub_s = jnp.take_along_axis(ub, s[:, None], axis=1)[:, 0]
             ub_s_safe = jnp.where(jnp.isfinite(ub_s), ub_s, 0.0)
             dd_loc = sigma[:, None] * col_loc
@@ -387,15 +382,10 @@ def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,
         r_loc = jnp.argmax(owner_rows, axis=1)               # (B,)
 
         # ---- pivot-row broadcast (psum of masked contribution) --------- #
-        # Row extraction: same B_loc = 1 specialization (a row slice is
-        # O(N) bytes; the one-hot contraction is another full tableau pass).
-        if Bl == 1:
-            piv_row_own = lax.dynamic_slice(
-                T_loc, (0, r_loc[0], 0), (1, 1, N1))[:, 0, :]
-        else:
-            r_hot = jax.nn.one_hot(r_loc, T_loc.shape[1], dtype=dt)
-            piv_row_own = jnp.einsum("bm,bmn->bn", r_hot, T_loc)  # (B, N+1)
-        pivot_own = jnp.einsum("bn,bn->b", piv_row_own, s_hot)
+        piv_row_own = jnp.take_along_axis(
+            T_loc, r_loc[:, None, None], axis=1)[:, 0, :]     # (B, N+1)
+        pivot_own = jnp.take_along_axis(piv_row_own, s[:, None],
+                                        axis=1)[:, 0]
         safe = jnp.where(has_owner & (jnp.abs(pivot_own) > 0), pivot_own, 1.0)
         contrib = jnp.where(has_owner[:, None], piv_row_own / safe[:, None],
                             0.0)
@@ -501,7 +491,7 @@ def _sharded_body(T_loc, basis_loc, obj, col_mask_p1, col_mask_p2,
                                   basis_loc)
 
         # Objective-row update (replicated, consistent across devices).
-        obj_s = jnp.einsum("bn,bn->b", obj, s_hot)
+        obj_s = jnp.take_along_axis(obj, s[:, None], axis=1)[:, 0]
         obj_new = obj - obj_s[:, None] * piv_row
         if bounded:
             z_piv = z_old + sigma * rc_s * step
@@ -796,6 +786,8 @@ def solve_arrays_sharded(c, A, b, ops, maximize=True, mesh: Mesh = None,
         "z": np.where(ok, z, np.nan),
         "status": status,
         "iters": int(iters),
+        # How many devices hold the tableau (observability of the mesh).
+        "tableau_devices": len(T_out.sharding.device_set),
     }
     if certify:
         # Same f64 safety net as the batched path, via the STRUCTURED

@@ -5,7 +5,7 @@
 // (/root/reference/app/controllers/solver_controller.py:78-85) — but
 // implemented from scratch.  Used as (a) a zero-dispatch-latency fallback
 // for tiny problems, (b) an exact float64 cross-check/refinement engine for
-// the TPU kernels, and (c) the reference implementation in differential
+// the device kernels, and (c) the reference implementation in differential
 // tests.
 //
 // Algorithm (round-4 upgrade, closing VERDICT r3 weak #8 "Dantzig-only and

@@ -10,7 +10,8 @@ The reference's observability is ``print`` statements on the solve path
 * :func:`simple_timeit` — the standard JAX steady-state timing pattern:
   compile/warm-up first, then timed runs with ``block_until_ready`` and a
   data dependency so elided duplicate dispatches can't fake bandwidth
-  (observed >4 TB/s on an 819 GB/s part without this — see bench.py).
+  (without it a measured bandwidth can exceed the part's peak — see
+  bench.py).
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Test harness configuration.
 
 Runs the whole suite on the CPU backend with 8 virtual XLA devices so that
-mesh/collective code is exercised without a TPU pod — the standard JAX
+mesh/collective code is exercised without several devices — the standard JAX
 testing pattern (SURVEY.md §4 "equivalent-strategy mapping").
 """
 import os

@@ -16,7 +16,6 @@ _ENV_KEYS = [
     "SIMPLEX_TPU_PRESOLVE", "SIMPLEX_TPU_TOL", "SIMPLEX_TPU_MAX_ITERS",
     "SIMPLEX_TPU_DTYPE", "SIMPLEX_TPU_REFINE", "SIMPLEX_TPU_TIME_LIMIT",
     "SIMPLEX_TPU_MAX_HISTORY", "SIMPLEX_TPU_REFACTOR_EVERY",
-    "SIMPLEX_TPU_BATCHED_BACKEND",
 ]
 
 
@@ -41,10 +40,35 @@ def test_from_env_honors_every_field(clean_env, monkeypatch):
     monkeypatch.setenv("SIMPLEX_TPU_TIME_LIMIT", "3.5")
     monkeypatch.setenv("SIMPLEX_TPU_MAX_HISTORY", "9")
     monkeypatch.setenv("SIMPLEX_TPU_REFACTOR_EVERY", "32")
-    monkeypatch.setenv("SIMPLEX_TPU_BATCHED_BACKEND", "xla")
     cfg = SolverConfig.from_env()
     assert cfg == SolverConfig(
         pivot_rule="dantzig", bland_after=17, presolve=False, tol=1e-5,
         max_iters=123, dtype="float64", refine=False, time_limit=3.5,
-        max_history=9, refactor_every=32, batched_backend="xla",
+        max_history=9, refactor_every=32,
     )
+
+
+@pytest.mark.parametrize("env_dir", [None, "from_env"])
+def test_compile_cache_placement(monkeypatch, tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR wins untouched where set; otherwise the
+    cache sits at the fixed ``.jax_cache/`` of the checkout."""
+    import jax
+
+    from simplex_tpu import config
+
+    before = jax.config.jax_compilation_cache_dir
+    if env_dir:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        path = config.enable_compile_cache()
+        if env_dir:
+            assert path == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            assert path == os.path.join(config.BASE_DIR, ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == path
+            assert config.enable_compile_cache() == path   # fixed path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -3,7 +3,7 @@
 Spawns two real OS processes on localhost, each with 2 virtual CPU devices,
 builds a global 4-device mesh whose ``row`` axis SPANS the process boundary,
 and runs the sharded simplex — so the per-pivot pmin/psum collectives
-actually cross processes (Gloo), the situation a TPU pod's DCN hops present.
+actually cross processes (Gloo), the situation hosts joined by a network present.
 Parity is asserted against scipy inside the workers.
 """
 import os

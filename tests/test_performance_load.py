@@ -173,7 +173,7 @@ def test_simultaneous_users_success_rate(app):
 
 def test_batched_throughput_smoke():
     """Batched-engine throughput sanity: 256 LPs in one device call should
-    beat 256 sequential web solves by a wide margin (the TPU-native
+    beat 256 sequential web solves by a wide margin (the batched
     analogue of the reference's pytest-benchmark microbench)."""
     import numpy as np
     from simplex_tpu.models.batched import BatchedSimplexSolver

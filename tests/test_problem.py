@@ -78,7 +78,7 @@ def test_padding_is_tile_aligned():
     lp = LinearProgram.from_problem_dict(PROBLEM)
     sf = compile_standard_form(lp, row_pad=8, col_pad=128)
     # The TOTAL tableau (incl. objective row and RHS column) lands on the
-    # TPU f32 (8, 128) tile grid — no physical padding streamed per pass.
+    # (row_pad, col_pad) grid.
     assert sf.tableau.shape == (8, 128)
     assert not sf.col_mask_p1[sf.n_cols:].any()
 

@@ -1,7 +1,7 @@
 """Distributed-path tests on the 8-virtual-device CPU mesh (conftest.py).
 
 The reference has no distributed code to mirror (SURVEY.md §2.4); these
-tests validate the TPU-native row-block sharded solver against scipy and
+tests validate the row-block sharded solver against scipy and
 against the single-chip batched engine, plus the driver entry points.
 """
 import os
@@ -291,8 +291,8 @@ def test_graft_entry_and_dryrun():
 @pytest.mark.skipif(
     os.environ.get("SIMPLEX_RUN_100K") != "1",
     reason="config-5 100k-row regime: ~30 min + ~115 GB host RAM on the "
-           "virtual mesh; opt in with SIMPLEX_RUN_100K=1 (artifact: "
-           "BENCH_sharded100k_r05.json)")
+           "virtual mesh; opt in with SIMPLEX_RUN_100K=1 (on four GPUs: "
+           "python chip_smoke.py --four-cards)")
 def test_sharded_100k_rows_certified():
     """BASELINE config 5: a 100,000-constraint LP solved end-to-end
     through the row-sharded kernel with a certified verdict.
